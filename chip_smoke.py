@@ -18,7 +18,15 @@ Phases; each raises on a failed check, and the script then exits non-zero:
      at the main path's shapes (CUDA events, L2 flushed before each
      repetition), each solve end to end, and the top device operations of
      each solve from ``torch.profiler``;
-  5. the ``kernels`` JSON line, the card line and the ``ok`` line (last).
+  5. attention — ``attention_decode`` at decode_32k (S = 32,768) and
+     ``attention_prefill_causal`` at T = S = 4,096, at the attention widths
+     of granite-34b, minitron-8b and qwen1.5-0.5b, in bf16 and float32,
+     each call with the launch counters zeroed just before and read just
+     after and held to its plain version on the card, at a tolerance that
+     must reject wrong kernels emulated from the plain version; causality,
+     a bitwise repeat of decode, and timings of each kernel, its plain
+     version and ``scaled_dot_product_attention``;
+  6. the ``kernels`` JSON line, the card line and the ``ok`` line (last).
 
 Needs one CUDA card, ``nvcc`` and this repository's ``src/``; imports no
 JAX.  ``--out`` also writes every number as JSON.
@@ -27,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -40,7 +49,8 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float32: 67e12,       # non-tensor-core rates, same sheet
-              torch.float64: 34e12}
+              torch.float64: 34e12,
+              torch.bfloat16: 989e12}     # dense bf16 tensor cores, same sheet
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}  # rtol and atol, as in the reference tests
 BATCH = 16
 SOLVE_REPS = 7  # timed warm runs of each solve; the median is reported
@@ -419,6 +429,291 @@ def phase_solves(g, push) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 5
+# Attention widths of the repo's LM configurations (src/repro/configs/):
+# (name, B, Hq, Hk, D).  Decode runs decode_32k (S = 32,768, B as below:
+# 2.15 GB of bf16 KV at each); prefill runs B = 1 at T = S = 4,096, cut
+# from prefill_32k because the plain version's [Hq, T, T] float32 scores
+# would take 206 GB at T = 32,768 (3.2 GB here).
+DECODE_S = 32_768
+DECODE_SHAPES = (("granite-34b", 128, 48, 1, 128),
+                 ("minitron-8b", 16, 32, 8, 128),
+                 ("qwen1.5-0.5b", 16, 16, 16, 64))
+PREFILL_T = 4_096
+PREFILL_SHAPES = (("granite-34b", 1, 48, 1, 128),
+                  ("qwen1.5-0.5b", 1, 16, 16, 64))
+ATTN_DTYPES = (torch.bfloat16, torch.float32)
+# rtol as in the reference's tests (tests/test_kernels.py), and float32's
+# atol too.  The reference's bf16 atol, 2e-2, was set at S <= 512, where
+# outputs are ~0.07; a decode_32k output is ~sqrt(e / S) = 0.009, and there
+# that atol would pass a wrong kernel.  So bf16's atol follows the output's
+# scale, a fiftieth of its median magnitude.  A sound bf16 result differs
+# from the plain one by at most one ulp of the stored value (2^-7 of it),
+# which rtol covers.
+ATTN_RTOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+ATTN_F32_ATOL = 2e-5
+BF16_ATOL_OF_MEDIAN = 0.02
+TOL_OF_MEDIAN_MAX = 0.1  # the tolerance at the median |output| stays under this share of it
+# launches of one call: decode runs its split pass and its combine
+ATTN_LAUNCHES = {"decode": {"flash_decode": 2, "flash_prefill_causal": 0},
+                 "prefill": {"flash_decode": 0, "flash_prefill_causal": 1}}
+
+
+def attention_bound(B, Hq, Hk, T, S, D, dtype, causal) -> tuple[float, str, int, int]:
+    """Least time of one attention call: q, K and V read once and the output
+    written once over the HBM rate, against the products' operations (QK
+    and PV, 2 each per multiply-add) over the dtype's peak rate; the larger
+    of the two.  Causal calls count only the kept (query, key) pairs."""
+    item = torch.finfo(dtype).bits // 8
+    nbytes = item * (2 * B * Hq * T * D + 2 * B * Hk * S * D)
+    if causal:  # query t sees keys 0..min(t, S-1)
+        m = min(T, S)
+        pairs = m * (m + 1) // 2 + (T - m) * S
+    else:
+        pairs = T * S
+    flops = 4 * B * Hq * D * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by, nbytes, flops
+
+
+def attention_tolerance(ref: torch.Tensor) -> tuple[float, float]:
+    """(rtol, atol) against the plain output ``ref``; raises if the
+    tolerance at the median |ref| is not well under that magnitude."""
+    med = float(ref.float().abs().median())
+    rtol = ATTN_RTOL[ref.dtype]
+    atol = ATTN_F32_ATOL if ref.dtype == torch.float32 else BF16_ATOL_OF_MEDIAN * med
+    if not atol + rtol * med <= TOL_OF_MEDIAN_MAX * med:
+        raise RuntimeError(f"check failed: tolerance {atol:.3g} + {rtol:g} |ref| is not "
+                           f"under {TOL_OF_MEDIAN_MAX:g} of the median |ref| {med:.3g}")
+    return rtol, atol
+
+
+def tolerance_ratio(out, ref, rtol: float, atol: float) -> tuple[float, float]:
+    """(max |out - ref|, max of |out - ref| / (atol + rtol |ref|)): the
+    comparison passes when the ratio is at most 1."""
+    diff = (out.float() - ref.float()).abs()
+    return float(diff.max()), float((diff / (atol + rtol * ref.float().abs())).max())
+
+
+def _swap_column_pairs(x: torch.Tensor) -> torch.Tensor:
+    return x.unflatten(-1, (x.shape[-1] // 2, 2)).flip(-1).flatten(-2)
+
+
+def _decode_unrescaled_combine(q, k, v, keys_per_split: int) -> torch.Tensor:
+    """Split-KV decode whose combine forgets to rescale each split to the
+    common maximum: sum(acc_i) / sum(l_i), each relative to its own m_i."""
+    B, Hq, D = q.shape
+    Hk, S = k.shape[1], k.shape[2]
+    qf = (q.float() / math.sqrt(D)).reshape(B, Hk, Hq // Hk, D)
+    acc, l_sum = 0.0, 0.0
+    for j in range(0, S, keys_per_split):
+        s = qf @ k[:, :, j:j + keys_per_split].float().transpose(-1, -2)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        acc = acc + p @ v[:, :, j:j + keys_per_split].float()
+        l_sum = l_sum + p.sum(dim=-1, keepdim=True)
+    return (acc / l_sum).reshape(B, Hq, D).to(q.dtype)
+
+
+def attention_faults(kind: str, q, k, v, ref, keys_per_split: int, tile: int = 64):
+    """Outputs of plausible wrong kernels, made from the plain version on
+    the same inputs: {fault: output}.  Decode: the last split's keys lost,
+    a combine without the max rescale, V's columns swapped in pairs (a
+    wrong bf16x2 unpack).  Prefill: the first key tile lost for the rows
+    past it, the mask one key past the diagonal, V's columns swapped in
+    pairs."""
+    from repro_torch.kernels.flash_attention import decode_ref, prefill_causal_ref
+    if kind == "decode":
+        cut = k.shape[2] - keys_per_split
+        return {"last split lost": decode_ref(q, k[:, :, :cut], v[:, :, :cut]),
+                "combine without the max rescale":
+                    _decode_unrescaled_combine(q, k, v, keys_per_split),
+                "V columns swapped in pairs": decode_ref(q, k, _swap_column_pairs(v))}
+    late = prefill_causal_ref(q[:, :, tile:], k[:, :, tile:], v[:, :, tile:])
+    shifted = prefill_causal_ref(torch.cat([q[:, :, :1], q], dim=2), k, v)
+    return {"first key tile lost": torch.cat([ref[:, :, :tile], late], dim=2),
+            "mask one key past the diagonal": shifted[:, :, 1:],
+            "V columns swapped in pairs": prefill_causal_ref(q, k, _swap_column_pairs(v))}
+
+
+def counted_attention(fn):
+    """Run ``fn`` with every launch counter of the port zeroed just before
+    and read just after; returns (result, attention counts, ELL counts)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.spmv_ell import LAUNCHES as ELL_LAUNCHES
+    from repro_torch.kernels.spmv_ell import reset_launch_counts as reset_ell
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    reset_ell()
+    r = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return r, dict(fa.LAUNCHES), dict(ELL_LAUNCHES)
+
+
+def attention_inputs(kind, B, Hq, Hk, D, dtype, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    T, S = (1, DECODE_S) if kind == "decode" else (PREFILL_T, PREFILL_T)
+    q_shape = (B, Hq, D) if kind == "decode" else (B, Hq, T, D)
+    return [torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+            for shape in (q_shape, (B, Hk, S, D), (B, Hk, S, D))]
+
+
+def phase_attention(dev) -> dict:
+    from repro_torch.kernels.flash_attention import (
+        attention_decode,
+        attention_prefill_causal,
+        decode_ref,
+        decode_splits,
+        prefill_causal_ref,
+    )
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("== attention: attention_decode at decode_32k and attention_prefill_causal "
+        f"at T = S = {PREFILL_T}, bf16 and float32, counters zeroed just before each "
+        "call and read just after; plain versions on the card with TF32 off "
+        f"(matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32})")
+    entry = {"decode": attention_decode, "prefill": attention_prefill_causal}
+    plain = {"decode": decode_ref, "prefill": prefill_causal_ref}
+    launches = {"flash_decode": 0, "flash_prefill_causal": 0}
+    errs, calls = {}, []
+    seed = SEED + 10
+    for kind, shapes in (("decode", DECODE_SHAPES), ("prefill", PREFILL_SHAPES)):
+        for name, B, Hq, Hk, D in shapes:
+            for dtype in ATTN_DTYPES:
+                seed += 1
+                q, k, v = attention_inputs(kind, B, Hq, Hk, D, dtype, dev, seed)
+                out, n, n_ell = counted_attention(lambda: entry[kind](q, k, v))
+                label = f"{kind} {name} B={B} {Hq}:{Hk} D={D} {str(dtype)[6:]}"
+                check(n == ATTN_LAUNCHES[kind] and not any(n_ell.values()),
+                      f"{label}: launches {n}, none of the ELL kernels")
+                for key in launches:
+                    launches[key] += n[key]
+                ref = plain[kind](q, k, v)
+                check(out.shape == q.shape and out.dtype == dtype
+                      and bool(torch.isfinite(out).all()), f"{label}: finite, {tuple(q.shape)}")
+                rtol, atol = attention_tolerance(ref)
+                err, ratio = tolerance_ratio(out, ref, rtol, atol)
+                torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+                log(f"  {label}: max |err| vs plain {err:.3e}, {ratio:.3f} of the "
+                    f"tolerance {atol:.3g} + {rtol:g} |ref| (median |ref| "
+                    f"{float(ref.float().abs().median()):.3g})")
+                # the tolerance must reject plausible wrong kernels; the
+                # reference's own 2e-2 is shown beside it
+                keys_per_split = decode_splits(B * Hk, k.shape[2], n_sms)[1]
+                ref_tol = 2e-5 if dtype == torch.float32 else 2e-2
+                faults = {}
+                for fault, bad in attention_faults(kind, q, k, v, ref,
+                                                   keys_per_split).items():
+                    f_err, f_ratio = tolerance_ratio(bad, ref, rtol, atol)
+                    f_old = tolerance_ratio(bad, ref, ref_tol, ref_tol)[1]
+                    faults[fault] = dict(max_abs_err=f_err, ratio=f_ratio,
+                                         ratio_at_reference_tol=f_old)
+                least = min(faults, key=lambda f: faults[f]["ratio"])
+                check(all(f["ratio"] > 1 for f in faults.values()),
+                      f"{label}: every emulated fault rejected; least {least}: max |err| "
+                      f"{faults[least]['max_abs_err']:.3e}, {faults[least]['ratio']:.2f} "
+                      f"of the tolerance, {faults[least]['ratio_at_reference_tol']:.2f} "
+                      f"of the reference's rtol = atol = {ref_tol:g}")
+                errs[(kind, name, dtype)] = err
+                calls.append(dict(kind=kind, config=name, B=B, Hq=Hq, Hk=Hk, D=D,
+                                  dtype=str(dtype), launches=n, max_abs_err=err,
+                                  rtol=rtol, atol=atol, tol_ratio=ratio, faults=faults))
+                if kind == "decode":
+                    check(torch.equal(out, entry[kind](q, k, v)),
+                          f"{label}: a second run is bitwise equal")
+                else:
+                    half = PREFILL_T // 2
+                    k2, v2 = k.clone(), v.clone()
+                    k2[:, :, half:], v2[:, :, half:] = 0.0, 1.0
+                    out2 = entry[kind](q, k2, v2)
+                    check(torch.equal(out[:, :, :half], out2[:, :, :half]),
+                          f"{label}: causal (new keys and values from t = {half} on "
+                          f"leave every earlier row bitwise equal)")
+                del q, k, v, out, ref
+                torch.cuda.empty_cache()
+    log(f"  launches on the attention path: {launches}")
+    check(all(v > 0 for v in launches.values()),
+          "both attention kernels launched on the attention path")
+    return dict(launches=launches, errs=errs, calls=calls)
+
+
+def phase_attention_timings(dev, attn) -> dict:
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import (
+        attention_decode,
+        attention_prefill_causal,
+        decode_ref,
+        prefill_causal_ref,
+    )
+    F = torch.nn.functional
+    log("== attention timings (CUDA events, L2 flushed before each repetition); "
+        "library = scaled_dot_product_attention (enable_gqa, is_causal for "
+        "prefill; flash, cuDNN or efficient backend, never the math one; tried in "
+        "both dtypes)")
+    timer = Timer(dev, reps=10, warmup=2)
+    rows, lines = [], []
+    cases = [("decode", s, torch.bfloat16) for s in DECODE_SHAPES]
+    cases += [("decode", DECODE_SHAPES[0], torch.float32)]
+    cases += [("prefill", s, torch.bfloat16) for s in PREFILL_SHAPES]
+    cases += [("prefill", PREFILL_SHAPES[0], torch.float32)]
+    for kind, (name, B, Hq, Hk, D), dtype in cases:
+        q, k, v = attention_inputs(kind, B, Hq, Hk, D, dtype, dev, SEED + 30)
+        if kind == "decode":
+            kern, ref = (lambda: attention_decode(q, k, v)), (lambda: decode_ref(q, k, v))
+            T, S, causal, q4 = 1, DECODE_S, False, q[:, :, None]
+        else:
+            kern = lambda: attention_prefill_causal(q, k, v)  # noqa: E731
+            ref = lambda: prefill_causal_ref(q, k, v)  # noqa: E731
+            T, S, causal, q4 = PREFILL_T, PREFILL_T, True, q
+        t_k, t_p = timer(kern), timer(ref)
+        # SDPA is only a yardstick: its math backend would copy the KV heads
+        # up to Hq (103 GB at granite-34b's decode), so it is left out, and
+        # a shape that no other backend takes gets no library time
+        t_l = why = None
+        try:
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION]):
+                t_l = timer(lambda: F.scaled_dot_product_attention(
+                    q4, k, v, is_causal=causal, enable_gqa=True))
+        except RuntimeError as e:  # torch.OutOfMemoryError included
+            why = f"not timed (no non-math SDPA backend took it: {str(e).splitlines()[0][:120]})"
+        torch.cuda.empty_cache()
+        b_ms, b_by, nbytes, flops = attention_bound(B, Hq, Hk, T, S, D, dtype, causal)
+        label = (f"{kind} {name} B={B} {Hq}:{Hk} D={D} T={T} S={S} "
+                 f"{str(dtype)[6:]}")
+        lib = f"{t_l:.4f} ms" if t_l is not None else why
+        log(f"  {label}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {lib}, bound "
+            f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP); "
+            f"{nbytes / (t_k * 1e-3) / 1e9:.0f} GB/s, "
+            f"{flops / (t_k * 1e-3) / 1e12:.1f} TFLOP/s, {b_ms / t_k:.3f} of the bound")
+        lines.append(dict(kind=kind, config=name, B=B, Hq=Hq, Hk=Hk, D=D, T=T, S=S,
+                          dtype=str(dtype), ms=t_k, plain_ms=t_p, library_ms=t_l,
+                          bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops))
+        del q, k, v, q4
+        torch.cuda.empty_cache()
+    # the kernels line: granite-34b in bf16, the configs' dtype
+    for kernel, kind, line in (("flash_decode", "decode", lines[0]),
+                               ("flash_prefill_causal", "prefill",
+                                lines[len(DECODE_SHAPES) + 1])):
+        rows.append(dict(
+            name=kernel, route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:"
+                     + ("63" if kind == "decode" else "145"),
+            launches=attn["launches"][kernel],
+            max_abs_err=attn["errs"][(kind, "granite-34b", torch.bfloat16)],
+            ms=line["ms"], plain_ms=line["plain_ms"], bound_ms=line["bound_ms"],
+            bound_by=line["bound_by"], library_ms=line["library_ms"],
+            shape=f"{kind} granite-34b width B={line['B']} {line['Hq']}:{line['Hk']} "
+                  f"D={line['D']} T={line['T']} S={line['S']}, bf16",
+            max_abs_err_f32=attn["errs"][(kind, "granite-34b", torch.float32)]))
+    return dict(kernels=rows, lines=lines)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, help="also write every number as JSON here")
@@ -455,19 +750,23 @@ def main(argv=None) -> int:
     main_out = phase_main_path(g, push, dev)
     timings = phase_timings(push, dev, errs, main_out)
     solves = phase_solves(g, push)
+    attn = phase_attention(dev)
+    attn_timings = phase_attention_timings(dev, attn)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     kernels_line = json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms", "shape", "max_abs_err_f32")}
-        for row in timings["kernels"]]})
+        for row in timings["kernels"] + attn_timings["kernels"]]})
     card = card_line()
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(dict(
             card=card, torch=torch.__version__, cuda=torch.version.cuda,
             build_s=build_s, graph=g.stats(), main_path=main_out,
-            kernels=timings["kernels"], solves=solves), indent=1))
+            kernels=timings["kernels"] + attn_timings["kernels"], solves=solves,
+            attention=dict(launches=attn["launches"], calls=attn["calls"],
+                           timings=attn_timings["lines"])), indent=1))
     print(kernels_line)
     print(card)
     print(json.dumps({"ok": True, "device": {

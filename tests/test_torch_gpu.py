@@ -7,8 +7,13 @@ there with
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 The plain versions are themselves held against the JAX reference on the
-CPU (tests/test_torch_kernels.py).  Tolerances: 1e-12 in float64 and 1e-5
-in float32, relative and absolute, as in the reference's kernel tests.
+CPU (tests/test_torch_kernels.py, tests/test_torch_flash_attention.py).
+Tolerances, relative and absolute, as in the reference's kernel tests:
+1e-12 in float64 and 1e-5 in float32 for the ELL kernels; 2e-5 in float32
+and an rtol of 2e-2 in bfloat16 for attention, whose plain versions run on
+the CPU here (no TF32 question arises there).  bf16's atol is a fiftieth
+of the output's median magnitude, not the reference's 2e-2, which is
+larger than a decode output at S = 32,768.
 """
 import numpy as np
 import pytest
@@ -16,6 +21,7 @@ import torch
 
 from repro_torch.core import ita, ita_batch, one_hot_personalizations, run_ita_loop
 from repro_torch.graph import web_graph
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.spmv_ell import kernel as tkernel
 from repro_torch.kernels.spmv_ell import ops as tops
 from repro_torch.kernels.spmv_ell import ref as tref
@@ -100,3 +106,93 @@ def test_cuda_solvers_match_cpu_and_batch_rows(cuda_device):
         h, pi_bar, *_ = run_ita_loop(g_gpu, h0, torch.zeros_like(h0), c=0.85,
                                      xi=1e-10, max_iter=10_000, impl="ell", ctx=ctx)
         assert torch.equal(PiBar[b] + H[b], pi_bar + h)
+
+
+ATTN_RTOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+BF16_ATOL_OF_MEDIAN = 0.02
+
+
+def _attn_inputs(q_shape, kv_shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dtype)
+            for s in (q_shape, kv_shape, kv_shape)]
+
+
+def _close(out, ref, dtype):
+    # bf16's atol follows the output's scale, as in chip_smoke.py: the
+    # reference's 2e-2 was set at S <= 512 and would pass a wrong kernel at
+    # S = 32,768, where outputs are ~sqrt(e / S) = 0.009
+    ref = ref.float()
+    rtol = ATTN_RTOL[dtype]
+    atol = 2e-5 if dtype == torch.float32 else BF16_ATOL_OF_MEDIAN * float(ref.abs().median())
+    torch.testing.assert_close(out.cpu().float(), ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hk,S,D,block_s", [
+    (1, 4, 4, 256, 64, None),     # MHA
+    (2, 8, 2, 512, 64, 256),      # GQA 4:1
+    (1, 8, 1, 512, 128, 128),     # MQA
+    (2, 16, 16, 128, 64, None),   # qwen-ish MHA
+    (3, 48, 1, 1000, 128, None),  # granite-34b heads, ragged S
+    (2, 32, 8, 77, 128, 64),      # minitron-8b heads, S under one tile
+    (1, 96, 1, 300, 64, None),    # group above one 64-row tile
+    (1, 48, 1, 32768, 128, None),  # B * Hk = 1 at decode_32k's S
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_matches_plain(cuda_device, B, Hq, Hk, S, D, block_s, dtype):
+    q, k, v = _attn_inputs((B, Hq, D), (B, Hk, S, D), dtype, B * Hq + S)
+    qd, kd, vd = (t.to(cuda_device) for t in (q, k, v))
+    before = fa.LAUNCHES["flash_decode"]
+    out = fa.flash_decode(qd, kd, vd, block_s=block_s)
+    again = fa.attention_decode(qd, kd, vd, block_s=block_s)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_decode"] == before + 4  # split + combine, twice
+    assert out.dtype == dtype and out.shape == (B, Hq, D)
+    assert torch.equal(out, again)  # fixed-order combine: bitwise repeat
+    _close(out, fa.decode_ref(q, k, v), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hk,T,S,D", [
+    (1, 4, 4, 256, 256, 64),
+    (2, 8, 2, 256, 256, 64),
+    (1, 4, 1, 512, 512, 128),
+    (1, 6, 2, 100, 100, 64),     # ragged T = S
+    (1, 4, 1, 130, 200, 128),    # ragged, S > T
+    (2, 2, 1, 200, 70, 64),      # S < T: late rows see every key
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_prefill_matches_plain(cuda_device, B, Hq, Hk, T, S, D, dtype):
+    q, k, v = _attn_inputs((B, Hq, T, D), (B, Hk, S, D), dtype, T + D)
+    qd, kd, vd = (t.to(cuda_device) for t in (q, k, v))
+    before = fa.LAUNCHES["flash_prefill_causal"]
+    out = fa.attention_prefill_causal(qd, kd, vd)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_prefill_causal"] == before + 1
+    assert out.dtype == dtype and out.shape == (B, Hq, T, D)
+    _close(out, fa.prefill_causal_ref(q, k, v), dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_prefill_is_causal(cuda_device):
+    q, k, v = (t.to(cuda_device) for t in _attn_inputs((1, 2, 200, 64), (1, 2, 200, 64),
+                                                       torch.float32, 7))
+    o1 = fa.flash_prefill_causal(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 100:], v2[:, :, 100:] = 0.0, 0.0
+    o2 = fa.flash_prefill_causal(q, k2, v2)
+    assert torch.equal(o1[:, :, :100], o2[:, :, :100])
+
+
+@pytest.mark.gpu
+def test_cuda_flash_wrappers_reject_bad_inputs(cuda_device):
+    q = torch.zeros((1, 4, 64), device=cuda_device)
+    kv = torch.zeros((1, 2, 64, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="k on"):
+        fa.flash_decode(q, kv.cpu(), kv)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_decode(q[..., :32].contiguous(), kv[..., :32].contiguous(),
+                        kv[..., :32].contiguous())
+    with pytest.raises(TypeError):
+        fa.flash_decode(q.half(), kv.half(), kv.half())
